@@ -1,4 +1,4 @@
-"""decompress_tpu — a TPU-native DEFLATE-family codec framework.
+"""decompress_tpu — a device-parallel DEFLATE-family codec framework.
 
 Brand-new implementation (JAX/XLA/Pallas on the compute path, C++ for the
 native runtime pieces) with the full capability surface of the reference
@@ -6,12 +6,13 @@ OCaml library mirage/decompress: raw DEFLATE (`de`), zlib (`zl`), gzip
 (`gz`), LZO1X (`lzo`), a standalone LZ77 (`lz`), streaming and one-shot
 APIs, a CLI, and multi-chip/multi-host sharded compression (`parallel`).
 
-Layer map (TPU-first re-design of SURVEY.md §1):
+Layer map (device-first re-design of SURVEY.md §1):
 
     cli / bench                    parallel/ (mesh-sharded members)
         │                               │
     gz ── zl ── de ── lzo          ops/ (device kernels: lz77, bitpack,
-        │        │                       inflate, checksum — jnp + Pallas)
+        │        │                       inflate, checksum — XLA; the GPU
+        │        │                       symbol decoder — Pallas/Triton)
         └── core/ (tables, canonical Huffman, bit I/O)
              └── native/ (C++: serial inflate fallback, checksum scalars,
                           LZO oracle)

@@ -32,8 +32,8 @@ def _write(path: str | None, data: bytes) -> None:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="decompress",
-        description="TPU-native DEFLATE/zlib/gzip/LZO codec "
-        "(capabilities of mirage/decompress, rebuilt for TPU).",
+        description="Device-parallel DEFLATE/zlib/gzip/LZO codec "
+        "(capabilities of mirage/decompress, rebuilt for accelerators).",
     )
     ap.add_argument("-d", "--decompress", action="store_true",
                     help="decompress instead of compress")

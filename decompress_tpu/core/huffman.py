@@ -9,7 +9,7 @@ numpy where it matters.
 
 Tree *construction* is a per-block, ~300-symbol problem: it runs on the
 host (it is far below device-dispatch granularity); the resulting code/
-length/decode-table arrays are what the TPU kernels consume.
+length/decode-table arrays are what the device kernels consume.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Raw DEFLATE (RFC 1951): one-shot encode/decode + building blocks.
 
-The TPU-native counterpart of the reference's `De` module
+The device-parallel counterpart of the reference's `De` module
 (lib/de.ml).  Capability parity:
 
 * ``deflate`` — one-shot compressor (role of `De.Def.Ns.deflate`,
@@ -203,11 +203,10 @@ def stored_cost_bits(n: int, bitpos_in_byte: int) -> int:
 # parse domain (pow2(seg + MAX_MATCH + 1)) stays at 2^17 instead of
 # doubling — the parse costs one gather pass per level per element.
 SEGMENT_SIZE = (1 << 17) - 512
-# Segments per device call.  Wider batches amortize the chip's fixed
-# per-gather-op dispatch cost (~1.8 us below ~256 lanes — the parse and
-# probe lax.scans are made of exactly such thin gathers), at the price
-# of proportional HBM footprint and compile time; the env knob exists
-# for on-chip sweeps.
+# Segments per device call.  Wider batches amortize the fixed cost of
+# each dispatched operation (the parse and probe lax.scans are made of
+# thin gathers), at the price of proportional device memory and compile
+# time; the env knob exists for on-chip sweeps.
 import os as _os
 
 MAX_DEVICE_BATCH = int(_os.environ.get("DECOMPRESS_TPU_BATCH", "8"))
@@ -257,7 +256,7 @@ def deflate(data, level: int | None = None, *, segment_size: int | None = None,
             dictionary: bytes | None = None,
             strategy: str | None = None,
             config=None) -> bytes:
-    """One-shot DEFLATE compress (TPU pipeline; level 0 = stored).
+    """One-shot DEFLATE compress (device pipeline; level 0 = stored).
 
     ``dynamic=False`` forces fixed-Huffman blocks (the reference
     Zl.Def ``~dynamic`` knob, zl.ml:560).  ``window_bits`` (8..15)
@@ -598,17 +597,12 @@ def _get_pack_jit():
     from .ops import bitpack as bitpack_ops
     from .ops import codes as codes_ops
 
-    from .ops import cost_pl as cost_pl_ops
-    from .ops import pack_pl as pack_pl_ops
-
     @functools.partial(jax.jit,
                        static_argnames=("out_words", "n_splits",
-                                        "split_stride", "split_bits",
-                                        "slot_sel"))
+                                        "split_stride", "split_bits"))
     def pack(on_path, is_match, length, dist, sym_lit, hdr_vals, hdr_bits,
              lit_codes, lit_bits, dist_codes, dist_bits, eob_vals, eob_bits,
-             out_words, n_splits=0, split_stride=2048, split_bits=0,
-             slot_sel="xla"):
+             out_words, n_splits=0, split_stride=2048, split_bits=0):
         # merged slots: (lit/len code | length extra) <= 15+5 bits and
         # (dist code | dist extra) <= 15+13 bits — two writes per command.
         # The per-segment canonical tables are packed (code<<4 | len)
@@ -616,38 +610,26 @@ def _get_pack_jit():
         # each slot costs ONE gathered element, not two.
         lit_cb = (lit_codes.astype(jnp.int32) << 4) | lit_bits
         dist_cb = (dist_codes.astype(jnp.int32) << 4) | dist_bits
-        if (slot_sel in ("pl", "pl-interpret")
-                and cost_pl_ops.supported(length.shape[1],
-                                          length.shape[0])):
-            # Pallas slot builder: the two per-segment table gathers
-            # become in-kernel select-trees; the code arithmetic rides
-            # along (ops/pack_pl.py) — bit-identical to the XLA form
-            v01, n01, v23, n23 = pack_pl_ops.build_slots_pl(
-                on_path, is_match, length, dist, sym_lit, lit_cb, dist_cb,
-                interpret=slot_sel == "pl-interpret")
-            v01 = v01.astype(jnp.uint32)
-            v23 = v23.astype(jnp.uint32)
-        else:
-            # code indices, extra-bit counts and extra-bit values are
-            # all elementwise arithmetic (ops/codes.py): the only
-            # gathers left are the per-segment tables themselves
-            lcode, lex, lval = codes_ops.length_code_parts(length)
-            sym = jnp.where(is_match, 257 + lcode, sym_lit.astype(jnp.int32))
-            dsym, dex, dval = codes_ops.dist_code_parts(dist)
-            cb0 = jnp.take_along_axis(lit_cb, sym, axis=1)
-            v0 = (cb0 >> 4).astype(jnp.uint32)
-            n0 = jnp.where(on_path, cb0 & 15, 0)
-            v1 = lval.astype(jnp.uint32)
-            n1 = jnp.where(is_match, lex, 0)
-            v01 = v0 | (v1 << n0.astype(jnp.uint32))
-            n01 = n0 + n1
-            cb2 = jnp.take_along_axis(dist_cb, dsym, axis=1)
-            v2 = (cb2 >> 4).astype(jnp.uint32)
-            n2 = jnp.where(is_match, cb2 & 15, 0)
-            v3 = dval.astype(jnp.uint32)
-            n3 = jnp.where(is_match, dex, 0)
-            v23 = v2 | (v3 << n2.astype(jnp.uint32))
-            n23 = n2 + n3
+        # code indices, extra-bit counts and extra-bit values are
+        # all elementwise arithmetic (ops/codes.py): the only
+        # gathers left are the per-segment tables themselves
+        lcode, lex, lval = codes_ops.length_code_parts(length)
+        sym = jnp.where(is_match, 257 + lcode, sym_lit.astype(jnp.int32))
+        dsym, dex, dval = codes_ops.dist_code_parts(dist)
+        cb0 = jnp.take_along_axis(lit_cb, sym, axis=1)
+        v0 = (cb0 >> 4).astype(jnp.uint32)
+        n0 = jnp.where(on_path, cb0 & 15, 0)
+        v1 = lval.astype(jnp.uint32)
+        n1 = jnp.where(is_match, lex, 0)
+        v01 = v0 | (v1 << n0.astype(jnp.uint32))
+        n01 = n0 + n1
+        cb2 = jnp.take_along_axis(dist_cb, dsym, axis=1)
+        v2 = (cb2 >> 4).astype(jnp.uint32)
+        n2 = jnp.where(is_match, cb2 & 15, 0)
+        v3 = dval.astype(jnp.uint32)
+        n3 = jnp.where(is_match, dex, 0)
+        v23 = v2 | (v3 << n2.astype(jnp.uint32))
+        n23 = n2 + n3
 
         # plane-separated pack: the two slot planes never interleave
         # (the [B,T,2]->[B,2T] merge is a strided relayout XLA pays
@@ -684,11 +666,9 @@ def _get_pack_jit():
         # boff (and cmdi) are monotone over positions, so the command
         # owning boundary j is `searchsorted(key, q_j, 'right') - 1` —
         # nslots*log2(T) gathered elements per segment instead of three
-        # full-T scatter passes (measured ~22 ms/MB of the pack budget;
-        # scatters run ~141 M elem/s on this chip, PERF.md).
+        # full-T scatter passes.
         if split_bits:
-            # fixed-BIT-stride splits (the Pallas decoder's preferred
-            # geometry): boundary j goes to the command whose bit span
+            # fixed-BIT-stride splits (the compact TB index): boundary j goes to the command whose bit span
             # CONTAINS j*split_bits (commands are <= 48 bits, so each
             # command contains at most one boundary); spans between
             # split points are bounded by split_bits + 48, which bounds
@@ -743,15 +723,12 @@ def _pack_segments(res, sym_lit, hdr_vals, hdr_bits, lit_codes, lit_bits,
                    dist_codes, dist_bits, eob_vals, eob_bits, out_words,
                    n_splits: int = 0, split_stride: int = 2048,
                    split_bits: int = 0):
-    from .ops import pack_pl as pack_pl_ops
-
     pack = _get_pack_jit()
     return pack(
         res["on_path"], res["is_match"], res["length"], res["dist"], sym_lit,
         hdr_vals, hdr_bits, lit_codes, lit_bits, dist_codes, dist_bits,
         eob_vals, eob_bits, out_words=out_words, n_splits=n_splits,
         split_stride=split_stride, split_bits=split_bits,
-        slot_sel=pack_pl_ops.slot_sel_for(res["on_path"]),
     )
 
 

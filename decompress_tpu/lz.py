@@ -12,7 +12,7 @@ kernel — so the two can cross-check each other:
   (head + bounded chain walk, byte-exact extension); distinct
   algorithm and code path from ops/lz77.py.
 * ``device=True`` routes through the shared device match finder
-  instead (the TPU-native default elsewhere in the package).
+  instead (the device default elsewhere in the package).
 
 Both emit the same Queue int packing, so `de.encode_commands` /
 `streaming.Def` encode either.
@@ -209,7 +209,7 @@ def compress_into(q: Queue, data: bytes, level: int = 6, *,
                   eob: bool = True, device: bool = False) -> None:
     """One-shot: match-find ``data`` and push commands into ``q``.
 
-    ``device=True`` uses the shared TPU match finder (ops/lz77.py)
+    ``device=True`` uses the shared device match finder (ops/lz77.py)
     instead of the host rolling-hash matcher.
     """
     data = bytes(data)

@@ -9,7 +9,7 @@ lzo.ml:315–393): first-byte literal runs, M1/M2/M3/M4 matches with
 2-bit trailing-literal state carry, 255-run extended lengths, and the
 M4 dist==16384 end marker.
 
-TPU-native split: match *finding* reuses the vectorized device LZ77
+Device/host split: match *finding* reuses the vectorized device LZ77
 kernel (ops/lz77.py) — LZO and DEFLATE share the match finder exactly
 as the reference shares `De.Lz77`-style matching across codecs — while
 the byte-oriented opcode emission/decoding is host code (it is

@@ -1,10 +1,8 @@
 """Device kernels: checksums, LZ77, bit packing, inflate.
 
-Mostly jnp/XLA graphs (this target's Mosaic rejects vector gathers, so
-the gather-heavy codec kernels stay XLA); the CRC-32 GF(2) chunk
-matmul runs as a real Pallas MXU kernel on TPU (checksum.py), with an
-interpret-mode path that doubles as the kernel sanitizer harness in
-CPU tests."""
+Plain jnp/XLA graphs, plus one hand-written kernel: the GPU symbol
+decoder (inflate_triton.py, Pallas on the Triton route), whose tests run
+it in interpret mode on the CPU."""
 
 from ..utils import enable_compile_cache as _enable_cache
 

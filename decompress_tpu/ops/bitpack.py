@@ -1,7 +1,7 @@
-"""Device bit packer: the DEFLATE entropy-emission hot loop, TPU-style.
+"""Device bit packer: the DEFLATE entropy-emission hot loop, data-parallel.
 
 The reference emits bits symbol-by-symbol through a 16-bit hold
-(`c_bits`/`write`, de.ml:2529–2541, 2708–2897).  On TPU the same job is
+(`c_bits`/`write`, de.ml:2529–2541, 2708–2897).  On the device the job is
 a *two-pass data-parallel* transform (SURVEY §3 "bit packer becomes a
 two-pass emit"):
 
@@ -17,8 +17,7 @@ contributions — out[w] = E[F[w+1]] - E[F[w]], where F (the first
 element landing at or beyond each word) comes from one scatter-min +
 reverse cummin over the monotone word indices.  That is one
 scatter-min pass instead of the two scatter-OR passes of the direct
-form (XLA scatters measure ~141 M elem/s on this chip — the pack
-kernel's dominant term — while cumsums run ~1.5 G elem/s; PERF.md).
+form: scatters cost more than cumsums per element.
 
 Elements with ``nbits == 0`` are no-ops, which lets callers keep dense
 masked command arrays (no compaction needed).  Little-endian uint32

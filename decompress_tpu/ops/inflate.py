@@ -2,7 +2,7 @@
 
 The reference's inflate is a byte-serial state machine (`De.Inf` hot
 loop, de.ml:1054–1261).  Bit-serial decode of a *foreign* stream is
-inherently sequential (SURVEY §7 "hard parts"), so the TPU design
+inherently sequential (SURVEY §7 "hard parts"), so the device design
 splits the problem:
 
 * foreign / streaming input → the native C++ state machine
@@ -171,8 +171,7 @@ def build_fused_tables(lit_lens, dist_lens):
     (lit_tabs int32[M, 32768], dist_tabs int32[M, 32768]) with fused
     entries (symbol kind + code length + extra-bit count + base folded
     into one word), indexed by the FORWARD 15-bit code (the kernel
-    bit-reverses its peek).  ~2 ms for 64 members: one scatter and one
-    cummax per table.
+    bit-reverses its peek): one scatter and one cummax per table.
     """
     lbase = jnp.asarray(tables.LENGTH_BASE, jnp.int32)
     lextra = jnp.asarray(tables.LENGTH_EXTRA, jnp.int32)
@@ -270,19 +269,17 @@ def decode_symbols(words, start_bits, lit_tabs, dist_tabs, max_cmds: int,
     NOP slots carry no symbol (a lane exhausted its bit window
     mid-step); use :func:`slot_counts` to size per-row slot spans.
 
-    Design: gather-frugal.  The chip executes ~140 M gathered elements
-    per second but >20 G elementwise lane-ops per second (measured), so
-    the kernel spends elementwise ops to avoid gathers: one stateless
+    Design: gather-frugal; the loop spends elementwise ops to avoid
+    gathers: one stateless
     ``nw``-word bit-window gather per 8-symbol step (no carried
     hold/refill state; lanes that outrun the window emit NOPs for the
     remaining slots instead of forcing worst-case sizing), a single
     flat gather per code resolution (single-level forward table
     addressed by a bit-reversed peek — the reverse is ~10 register
-    ops), and base/extra folded into the table entry.  ~3.25 gathered
-    elements per symbol per lane total, vs ~10 batched-gather rows in
-    the round-1 kernel — the difference between ~4 MB/s and >50 MB/s
-    on the same chip.  Replaces the reference's byte-serial hot loop
-    de.ml:1054-1261.
+    ops), and base/extra folded into the table entry: ~3.25 gathered
+    elements per symbol per lane.  The CPU path and the reference for
+    the GPU kernel (ops/inflate_triton.py).  Replaces the reference's
+    byte-serial hot loop de.ml:1054-1261.
     """
     return _decode_symbols(words, start_bits, lit_tabs, dist_tabs,
                            max_cmds=max_cmds, stop_counts=stop_counts,

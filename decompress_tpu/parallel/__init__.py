@@ -1,7 +1,7 @@
 """Multi-chip / multi-host sharded compression (SURVEY §2.11, §5.8).
 
 The reference is single-threaded; this package is the from-scratch
-parallel layer the TPU build adds: device meshes, data-parallel member
+parallel layer this build adds: device meshes, data-parallel member
 sharding, order-preserving gather, and associative checksum combine.
 """
 

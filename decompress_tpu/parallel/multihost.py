@@ -1,11 +1,10 @@
 """Multi-host bring-up and archive assembly (SURVEY §2.11, §5.8).
 
 The reference has no distributed runtime; this module supplies the
-multi-controller layer the TPU build adds:
+multi-controller layer this build adds:
 
 * :func:`initialize` — `jax.distributed` bring-up (same program on
-  every host; the global mesh then spans ICI within a slice and DCN
-  across slices).
+  every host; the global mesh then spans every card of every host).
 * :func:`sharded_gzip_compress_multihost` — each host compresses the
   members of its local shard (device-parallel within the host via
   parallel.sharded), then per-member byte sizes and payloads are

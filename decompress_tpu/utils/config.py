@@ -4,7 +4,7 @@ The reference exposes every knob as a function argument (level 0–9
 de.ml:4462–4477, window bits 8–15 de.ml:331–333, queue size
 de.ml:2286–2295, io_buffer_size de.ml:207, gzip metadata gz.ml:859–870,
 zlib ``~dynamic`` zl.ml:560).  This dataclass mirrors those knobs and
-adds the TPU-native ones (segment/batch geometry, mesh axes, archive
+adds the device ones (segment/batch geometry, mesh axes, archive
 indexing), so large deployments can carry one config object instead of
 threading arguments.
 """
@@ -23,7 +23,7 @@ class CodecConfig:
     io_buffer_size: int = 65536    # de.ml:207
     dynamic_blocks: bool = True    # zl.ml:560 ``~dynamic``
 
-    # TPU-native knobs
+    # device knobs
     segment_size: int | None = None   # device segment payload (de.SEGMENT_SIZE)
     device_batch: int | None = None   # segments per device call
     member_size: int | None = None    # sharded gzip member payload

@@ -1,4 +1,4 @@
-"""Host-only micro-bench of the native C++ inflater (no JAX/TPU).
+"""Host-only micro-bench of the native C++ inflater (no JAX device).
 
 Measures raw-DEFLATE decode MB/s over zlib-compressed corpus data, and
 the same via gz.decompress (adds CRC). Compares with Python zlib as the
@@ -9,7 +9,7 @@ import pathlib
 import time
 import zlib
 
-os.environ.setdefault("DECOMPRESS_TPU_PLATFORM", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 
 def main():

@@ -2,7 +2,7 @@
 (round-A exact[0] = False): which position, what span, which rung/pass.
 
 Runs on CPU (exactness is platform-independent).
-    DECOMPRESS_TPU_PLATFORM=cpu python scripts/diag_collision.py
+    JAX_PLATFORMS=cpu python scripts/diag_collision.py
 """
 import os
 import pathlib
@@ -11,7 +11,7 @@ import sys
 import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
-os.environ.setdefault("DECOMPRESS_TPU_PLATFORM", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import jax.numpy as jnp
 

@@ -1,4 +1,4 @@
-"""Level-6 ratio experiment (VERDICT r3 item 3): does the two-round
+"""Level-6 ratio experiment: does the two-round
 exact-cost parse (and the hash3 len-3 pass it enables) close the
 level-6 gap vs zlib-6?
 
@@ -7,10 +7,9 @@ Adds trial level slots:
   61 = level-6 config + two_round + hash3
   62 = level-6 config + two_round + hash3 + top2
 and prints per-file sizes vs level 6 and C zlib-6.  Ratios are
-platform-independent (run on CPU); chip cost is measured separately
-with scripts/ablate_lz77.py on a fresh slot.
+platform-independent (run on CPU).
 
-Run: DECOMPRESS_TPU_PLATFORM=cpu python scripts/level6_ratio.py
+Run: JAX_PLATFORMS=cpu python scripts/level6_ratio.py
 """
 
 import pathlib

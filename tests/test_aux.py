@@ -25,13 +25,30 @@ def test_config_validation():
         config.CodecConfig(queue_capacity=100).validate()
 
 
-def test_fetch_timer():
+def test_device_trace_writes_profile(tmp_path):
     import jax.numpy as jnp
 
-    t = profiling.FetchTimer()
-    t.start()
-    t.stop(jnp.arange(10))
-    assert t.median >= 0
+    with profiling.device_trace(str(tmp_path)) as d:
+        with profiling.annotate("stage"):
+            (jnp.arange(10) * 2).block_until_ready()
+    assert d == str(tmp_path)
+    assert list(tmp_path.rglob("*.xplane.pb"))
+
+
+@pytest.mark.parametrize("env", [None, "elsewhere"])
+def test_compile_cache_dir_rule(monkeypatch, tmp_path, env):
+    """JAX_COMPILATION_CACHE_DIR wins when set; otherwise the cache is
+    the checkout's .jax_cache/."""
+    from decompress_tpu.utils import cache
+
+    if env is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        want = cache._CHECKOUT / ".jax_cache"
+        assert (cache._CHECKOUT / "decompress_tpu").is_dir()
+    else:
+        want = tmp_path / env
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(want))
+    assert cache.cache_dir() == want
 
 
 def test_multihost_single_process_degenerates():

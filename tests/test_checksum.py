@@ -51,35 +51,24 @@ def test_empty_and_all_zero():
     assert checksum.adler32(z) == zlib.adler32(z)
 
 
-def test_pallas_crc_kernel_interpret():
-    """The Pallas MXU GF(2) matmul kernel, run in interpret mode (the
-    kernel sanitizer harness): must agree with the XLA dot path and
-    with the zlib oracle."""
-    import zlib
-
+@pytest.mark.parametrize("fill", ["random", "ones"])
+def test_crc32_batches_around_chunk_boundaries(fill):
+    """The batched CRC paths (host-padded and device-resident rows) at
+    lengths around CRC_CHUNK multiples.  All-0xFF rows drive every GF(2)
+    column count of the int8 chunk matmul to its maximum."""
     import jax.numpy as jnp
-    import numpy as np
 
-    from decompress_tpu.ops import checksum as cks
-
-    rng = np.random.default_rng(42)
-    data = rng.integers(0, 256, 3 * cks.CRC_CHUNK * 128, np.uint8)
-    # direct kernel-vs-dot comparison on the same bits
-    h = np.asarray(cks._crc_chunk_matrix(), np.float32)
-    chunks = data.reshape(-1, cks.CRC_CHUNK).astype(np.int32)
-    bits = ((chunks[:, :, None] >> np.arange(8)[None, None, :]) & 1)
-    bits = bits.reshape(chunks.shape[0], -1).astype(np.float32)
-    got = np.asarray(cks._crc_matmul_pallas(jnp.asarray(bits), jnp.asarray(h),
-                                            interpret=True))
-    want = (bits @ h).astype(np.int64) & 1
-    assert (got == want).all()
-
-    # end to end through the register path with the kernel forced on
-    old = cks._PALLAS_MODE
-    cks._PALLAS_MODE = "interpret"
-    try:
-        assert cks.crc32(data) == zlib.crc32(bytes(data))
-        assert cks.crc32(data[: cks.CRC_CHUNK + 7]) == zlib.crc32(
-            bytes(data[: cks.CRC_CHUNK + 7]))
-    finally:
-        cks._PALLAS_MODE = old
+    c = checksum.CRC_CHUNK
+    lengths = np.array([1, c - 1, c, c + 1, 2 * c - 1, 2 * c, 2 * c + 1,
+                        8 * c - 1, 8 * c], np.int32)
+    width = int(lengths.max())
+    rng = np.random.default_rng(3)
+    rows = (rng.integers(0, 256, (lengths.size, width), dtype=np.uint8)
+            if fill == "random"
+            else np.full((lengths.size, width), 0xFF, np.uint8))
+    for i, n in enumerate(lengths):
+        rows[i, n:] = 0  # the device path needs zeros past each length
+    want = [zlib.crc32(rows[i, :n].tobytes()) for i, n in enumerate(lengths)]
+    assert list(checksum.crc32_batch(rows, lengths)) == want
+    assert list(checksum.crc32_batch_device(jnp.asarray(rows), lengths)) == want
+    assert checksum.crc32(rows[-1].tobytes()) == want[-1]

@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).parent.parent
-ENV = dict(os.environ, DECOMPRESS_TPU_PLATFORM="cpu")
+ENV = dict(os.environ, JAX_PLATFORMS="cpu")
 
 
 def run_cli(args, stdin: bytes) -> bytes:

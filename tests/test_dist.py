@@ -83,6 +83,15 @@ def test_compress_step_collectives():
     assert (sizes == sizes[:, :1]).all()
 
 
+def test_make_mesh_raises_on_too_few_devices():
+    import jax
+
+    n = len(jax.devices())
+    assert parallel.make_mesh(n).devices.size == n
+    with pytest.raises(ValueError, match=f"need {n + 1} cpu devices"):
+        parallel.make_mesh(n + 1)
+
+
 def test_graft_entry_api():
     import jax
 
@@ -97,7 +106,7 @@ def test_graft_entry_api():
 def test_multihost_index_assembly_matches_single_host():
     """The multihost assembly path rebuilds the FEXTRA index from
     gathered metadata; its building blocks must reproduce the
-    single-host indexed archive byte-for-byte (ADVICE round 1)."""
+    single-host indexed archive byte-for-byte."""
     import numpy as np
 
     from decompress_tpu import gz

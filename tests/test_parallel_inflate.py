@@ -234,17 +234,16 @@ def test_nop_slots_emitted_and_skipped(payload):
     from decompress_tpu.parallel import sharded as sh
 
     arch = sharded_gzip_compress(payload, 6, member_size=MEMBER)
-    import pathlib
-    import sys
-
-    sys.path.insert(0, str(pathlib.Path(__file__).parent.parent / "scripts"))
-    from ablate_inflate import stage
-
-    mw, ll, dl, sb, sc, rm, max_cmds, nrows, _tb = stage(de._np_u8(arch))
+    st = sh._stage_rows(de._np_u8(arch))
+    mw, ll, dl, sb, sc, rm = (st.words, st.lit_lens, st.dist_lens,
+                              st.start_bits, st.stops, st.row_members)
+    nrows, _tb = st.nrows, st.bit_mode
     lt, dt = iops.build_fused_tables(jnp.asarray(ll), jnp.asarray(dl))
     # TB archives (the default) stop rows by BIT position
     kinds, values, dists, ok = iops.decode_symbols(
-        jnp.asarray(mw), jnp.asarray(sb), lt, dt, max_cmds=max_cmds,
+        jnp.asarray(mw), jnp.asarray(sb), lt, dt,
+        max_cmds=sh._ceil_pow2_int(
+            max(iops.worst_case_slots(c, nw=4) for c in st.row_caps) + 4),
         stop_counts=None if _tb else jnp.asarray(sc),
         stop_bits=jnp.asarray(sc) if _tb else None,
         row_members=jnp.asarray(rm), nw=4)

@@ -1,12 +1,13 @@
-"""Kernel sanitizer harness (SURVEY §5 row 2's TPU equivalent).
+"""Kernel sanitizer harness (SURVEY §5 row 2's device equivalent).
 
 The reference gets memory safety from OCaml plus explicit bounds
 checks around its ``unsafe_*`` accesses (lzo.ml:29–55); the device
 kernels here get the analogue from ``jax.experimental.checkify``:
 out-of-bounds index checks, NaN checks, and division checks threaded
 through the full jitted kernels (scans, while_loops and vmaps
-included).  The Pallas CRC kernel additionally runs in interpret mode
-(tests/test_checksum.py), the second half of the prescribed harness.
+included).  The Pallas symbol decoder additionally runs in interpret
+mode (tests/test_inflate_triton.py), the second half of the prescribed
+harness.
 
 These run on tiny shapes — the point is instrumentation coverage of
 every gather/scatter in the hot kernels, not throughput.
